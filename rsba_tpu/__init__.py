@@ -1,13 +1,13 @@
-"""rsba_tpu — a TPU-native rolling-shutter bundle-adjustment framework.
+"""rsba_tpu — a rolling-shutter bundle-adjustment framework in JAX.
 
 A from-scratch nonlinear least-squares solver for structure-from-motion
-bundle adjustment of rolling-shutter video, built on jax/XLA/Pallas:
-batched residual/Jacobian evaluation on the VPU/MXU, Schur-complement
-landmark elimination, blocked Cholesky and preconditioned CG on-chip, and
-multi-chip scaling via `jax.sharding` meshes with ICI collectives.
+bundle adjustment of rolling-shutter video, built on jax/XLA: batched
+residual/Jacobian evaluation, Schur-complement landmark elimination,
+blocked Cholesky and preconditioned CG on the accelerator, and
+multi-device scaling via `jax.sharding` meshes with XLA collectives.
 
 Capability parity target: henrique/rsba + the Ceres Solver feature surface
-it exposes (see SURVEY.md).  Not a port — a TPU-first redesign.
+it exposes (see SURVEY.md).  Not a port — a batched-accelerator redesign.
 """
 
 __version__ = "0.1.0"

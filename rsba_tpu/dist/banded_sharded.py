@@ -1,4 +1,4 @@
-"""Sharded banded window solver — the multi-chip hot path (config 5).
+"""Sharded banded window solver — the multi-device hot path (config 5).
 
 Extends the banded Schur solver (solver/banded.py) across a device mesh
 by sharding the window grid's **row axis** (NR): each shard owns a
@@ -21,15 +21,11 @@ Communication design (SURVEY.md §2.9 P2/P3, BASELINE.json:11):
 * Trust-region control stays in the host LM driver, identical to the
   single-chip path (replicated decisions from psum'd scalars).
 
-The per-shard evaluator here is the XLA window engine (banded.evaluate):
-it is portable to the virtual CPU mesh the tests/dryrun use.  On a real
-multi-chip TPU slice the fused Pallas kernel (kernels/fused.py) drops in
-per shard unchanged — its inputs/outputs are all row-sharded or
-replicated — which is the production configuration once >1 physical chip
-is available (this environment exposes one).
+The per-shard evaluator is the XLA window engine (banded.evaluate), the
+same one a single device runs.
 
 Reference parity: the reference (single-process Ceres, SURVEY.md §1.2)
-has no distributed layer; this module is the TPU-native scaling design
+has no distributed layer; this module is the multi-device scaling design
 BASELINE.json's north star mandates.
 """
 from __future__ import annotations

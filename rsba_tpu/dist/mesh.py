@@ -1,8 +1,8 @@
 """Mesh construction and problem sharding specs.
 
-One 1-D mesh axis ``"dp"`` spans all chips (ICI within a slice, DCN across
-slices — XLA routes the psums; SURVEY.md §5.8).  Multi-host entry is
-`jax.distributed.initialize()` + the same code: `Mesh` over
+One 1-D mesh axis ``"dp"`` spans all devices (XLA routes the psums: NVLink
+within a host, the network across hosts; SURVEY.md §5.8).  Multi-host
+entry is `jax.distributed.initialize()` + the same code: `Mesh` over
 `jax.devices()` is global across processes.
 """
 from __future__ import annotations
@@ -22,14 +22,14 @@ def initialize_multihost(coordinator_address: str | None = None,
                          process_id: int | None = None) -> dict:
     """Multi-host process bootstrap (SURVEY.md §4.2 item 5, §5.8).
 
-    Calls ``jax.distributed.initialize`` — on Cloud TPU pods the three
-    arguments auto-discover from the TPU metadata/environment, so the
-    launch line per host is simply::
+    Calls ``jax.distributed.initialize`` — under SLURM or Open MPI the
+    three arguments are detected from the launcher's environment, so the
+    line each process runs is simply::
 
         python -m rsba_tpu.cli.run --config=rs_mhost_pcg --shard --multihost
 
-    (or pass --coordinator=HOST:PORT --num-processes=N --process-id=I
-    explicitly on non-TPU clusters).  After initialization
+    Elsewhere pass --coordinator=HOST:PORT --num-processes=N
+    --process-id=I to every process.  After initialization
     ``jax.devices()`` spans every process and :func:`make_mesh` builds
     the global mesh; asserts that it does.
 
@@ -45,7 +45,7 @@ def initialize_multihost(coordinator_address: str | None = None,
         raise RuntimeError(
             f"multi-host init saw {jax.process_count()} processes but the "
             f"global device list ({n_global}) does not exceed the local "
-            f"one ({n_local}) — the mesh would not span the pod")
+            f"one ({n_local}) — the mesh would not span the processes")
     return {"process_id": jax.process_index(),
             "process_count": jax.process_count(),
             "global_devices": n_global, "local_devices": n_local}

@@ -3,9 +3,9 @@
 Parity: the reference pipeline's monocular sequence bootstrap (SURVEY.md
 §3.2 — the reference leans on OpenCV ``findEssentialMat`` /
 ``recoverPose``; VERDICT r3 item 4's "reconstruct from scratch" requires
-an in-framework equivalent).  TPU-first shape: the 8-point system is
+an in-framework equivalent).  Batched shape: the 8-point system is
 solved as the smallest eigenvector of the 9×9 normal matrix ``AᵀA``
-(symmetric ``eigh`` — batched, TPU-supported) rather than an (N, 9) SVD;
+(symmetric ``eigh``, batched) rather than an (N, 9) SVD;
 rays (not image points) feed the constraint so any camera convention /
 distortion is absorbed by ``triangulate.backproject``.
 

@@ -1,4 +1,4 @@
-"""Quaternion and rotation utilities (TPU-native, autodiff-safe).
+"""Quaternion and rotation utilities (batched, autodiff-safe).
 
 Conventions (the single source of truth for the whole framework — see
 SURVEY.md §7.2 item 4 on convention fidelity):

@@ -2,7 +2,7 @@
 
 Parity: the reference's Thrift-generated SfM structs + ``ceres::Problem``
 parameter/residual blocks (SURVEY.md §2 C1/C10), re-designed as
-structure-of-arrays pytrees with static shapes — the TPU-native layout where
+structure-of-arrays pytrees with static shapes — the batched layout where
 every observation is one lane of a batched kernel instead of one
 ``ResidualBlock`` object.
 
@@ -23,12 +23,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..geometry import CameraModel, Loss
+from ..pytree import pytree_dataclass
 
 #: tangent dims per pose block (3 rotation + 3 translation)
 POSE_DOF = 6
@@ -36,7 +36,7 @@ POSE_DOF = 6
 POINT_DOF = 3
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Params:
     """Optimizable parameters as a pytree of batched arrays."""
     q: jax.Array        # (P, 4) unit quaternions, wxyz
@@ -60,7 +60,7 @@ class Params:
         return jax.tree.map(lambda a: a.astype(dtype), self)
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Observations:
     """Structure-of-arrays observation table, statically padded."""
     uv: jax.Array        # (N, 2) measured pixels
@@ -76,7 +76,7 @@ class Observations:
         return self.uv.shape[0]
 
 
-@flax.struct.dataclass
+@pytree_dataclass(static=("model", "loss"))
 class Problem:
     """A batched bundle-adjustment problem.
 
@@ -90,8 +90,8 @@ class Problem:
     intr_free: jax.Array    # (K,) 1.0 free / 0.0 constant
     # Static (9, ni) tangent basis for intrinsics; ni == 0 → intrinsics fixed.
     intr_basis: jax.Array
-    model: CameraModel = flax.struct.field(pytree_node=False)
-    loss: Loss = flax.struct.field(pytree_node=False)
+    model: CameraModel
+    loss: Loss
 
     @property
     def intr_tangent_dim(self) -> int:

@@ -2,7 +2,7 @@
 
 Parity: Ceres's block-sparse ``Program`` storage and per-thread accumulation
 (SURVEY.md §2 C12, §2.9 P1/P3), as segment-sums over the observation axis —
-the TPU-native replacement for scatter-by-thread.
+the batched replacement for scatter-by-thread.
 
 Tangent vector layout (flat): ``[poses (P·6) | intrinsics (K·ni) | points
 (M·3)]``.  The camera part (poses+intrinsics) is the Schur "camera" group;

@@ -1,4 +1,4 @@
-"""Banded Schur solver on the window layout — the TPU hot path.
+"""Banded Schur solver on the window layout — the video hot path.
 
 Parity: Ceres ``ITERATIVE_SCHUR`` (SURVEY.md §2 C13-C16, §3.4) re-designed
 for the structure of video bundle adjustment: feature tracks span bounded
@@ -37,20 +37,20 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..geometry import camera
 from ..geometry import quaternion as quat
 from ..problem.types import POSE_DOF, Params, Problem
+from ..pytree import pytree_dataclass
 from .options import SolverOptions
 from .pcg import pcg
 from .schur import _lm_scaled_damp, invert_3x3_psd
 from .window import WindowPlan
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class WEvaluation:
     """Triggs-corrected residuals + block Jacobians in window layout."""
     r: jax.Array      # (NR, G, L, 2)
@@ -290,9 +290,8 @@ def make_band_preconditioner(S_band: jax.Array, kind: str,
     P, W = S_band.shape[0], S_band.shape[1]
     if kind in ("jacobi", "schur_jacobi"):
         # Closed-form 6×6 inverses (blocked Schur over invert_3x3_psd):
-        # XLA's batched cholesky/cho_solve on tiny blocks lowers to a
-        # serialized loop on TPU; the explicit inverse makes the per-CG-
-        # iteration apply one batched (P,6,6)×(P,6) contraction.  Round-
+        # the explicit inverse makes the per-CG-iteration apply one
+        # batched (P,6,6)×(P,6) contraction.  Round-
         # off only perturbs the CG convergence rate, never the solution.
         from .schur import invert_6x6_psd
         Minv = invert_6x6_psd(S_band[:, 0])

@@ -13,7 +13,7 @@ so the only dense inverse is of the reduced camera system S (Dc × Dc),
 never of the full H — points are recovered per-point in closed form,
 exactly like the solver's back-substitution.  Ceres computes the same
 quantities via sparse factorization of JᵀJ; the batched dense-S form is
-the TPU-native equivalent and is exact.
+the batched equivalent and is exact.
 
 Gauge handling: constant blocks (pose_free/point_free masks — e.g. the
 gauge-fixed first camera) have identically zero Jacobian columns, which

@@ -3,7 +3,7 @@
 Parity: Ceres ``DENSE_NORMAL_CHOLESKY`` (SURVEY.md §2 C14) — for small
 problems and as the exact oracle the Schur path is cross-checked against
 (mirrors Ceres's eliminator tests).  Includes Ceres-style Jacobi column
-scaling and optional iterative refinement for f32 robustness on TPU
+scaling and optional iterative refinement for f32 robustness
 (SURVEY.md §7.2 item 1).
 """
 from __future__ import annotations

@@ -7,7 +7,7 @@ sense — so it composes with ``dense`` and ``dense_schur`` only
 (``iterative_schur``'s inexact CG step would break the geometry; Ceres
 imposes the same restriction).
 
-TPU-first shape: the expensive work (one factorization + Gauss-Newton
+Accelerator shape: the expensive work (one factorization + Gauss-Newton
 solve, one Hessian-gradient product) happens ONCE per Jacobian inside
 ``prepare`` — each trust-region retry is a closed-form blend of the
 cached Cauchy and Gauss-Newton points (a few vector ops), so radius

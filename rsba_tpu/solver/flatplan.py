@@ -1,24 +1,19 @@
-"""Host-built observation groupings for the flat solvers' TPU hot path.
+"""Host-built observation groupings for the flat solvers.
 
-Problem: the flat engines' normal-equation assembly was written as
-duplicate-index scatter-adds (``x.at[idx].add`` / ``segment_sum``), which
-XLA lowers to serialized scatters on TPU — measured 338 ms for the dense
-camera block B and 157 ms for the camera-point block E at config-2 scale
-(~0.5 M observations), vs 14 ms for the full Jacobian evaluation they
-consume (VERDICT r4 weak #1).
+Problem: normal-equation assembly written as duplicate-index scatter-adds
+(``x.at[idx].add`` / ``segment_sum``) serializes on colliding indices.
 
-TPU-native pattern (the same one the banded window engine uses): sort
-the observation axis by the reduction key ON THE HOST at solver-build
-time, pad each key's run into fixed-width rows, and the segmented
-reduction becomes gather → dense ``sum`` over the slot axis → a
-near-unique row fold.  Gathers are fast on TPU; the only remaining
-scatter has one index per ROW (unique unless a hot key was split), not
-one per observation.
+Pattern (the same one the banded window engine uses): sort the
+observation axis by the reduction key ON THE HOST at solver-build time,
+pad each key's run into fixed-width rows, and the segmented reduction
+becomes gather → dense ``sum`` over the slot axis → a near-unique row
+fold.  The only remaining scatter has one index per ROW (unique unless a
+hot key was split), not one per observation.
 
 Cross-entity placements (camera-point block E, camera-camera cross
 blocks of B) additionally use a one-hot matmul over the SECOND entity:
-``einsum('rle,rl...->re...')`` rides the MXU instead of scattering into
-per-entity columns.
+``einsum('rle,rl...->re...')`` instead of scattering into per-entity
+columns.
 
 Parity: replaces Ceres's per-thread block-sparse accumulation
 (SURVEY.md §2 C12, §2.9 P1/P3) for the flat layout.
@@ -77,12 +72,10 @@ class GroupPlan(NamedTuple):
     def reduce_cols(self, comps: jax.Array) -> jax.Array:
         """Segmented sum of stacked scalar components, column layout.
 
-        comps (C, N) → (n_segments, C).  TPU layout note: a block-form
-        reduce gathers (R, L, w, w) — two tiny minor dims, which XLA
-        layout assignment pads to (8, 128) tiles (measured 13 GB of
-        temp at config-2 scale).  The column form keeps the huge axes
-        minor throughout: gather (C, L, R), sum over L, one near-unique
-        row fold.
+        comps (C, N) → (n_segments, C).  Layout note: a block-form
+        reduce gathers (R, L, w, w) — two tiny minor dims; the column
+        form keeps the huge axes minor throughout: gather (C, L, R), sum
+        over L, one near-unique row fold.
         """
         C = comps.shape[0]
         ext = jnp.concatenate(
@@ -125,14 +118,11 @@ def build_group_plan(ids: np.ndarray, n_segments: int,
     rows = np.repeat(np.arange(n_segments), rows_per)
     identity = bool(R == n_segments) and bool(
         np.array_equal(rows, np.arange(n_segments)))
-    from ..utils import hostcache
     plan = GroupPlan(slots=jnp.asarray(slots, jnp.int32),
                      slots_t=jnp.asarray(slots.T, jnp.int32),
                      rows=jnp.asarray(rows, jnp.int32),
                      n_segments=int(n_segments), n_obs=N,
                      identity_rows=identity)
-    hostcache.put(plan.slots, slots)
-    hostcache.put(plan.rows, rows)
     return plan
 
 
@@ -175,12 +165,11 @@ class FlatPlans(NamedTuple):
 
 def build_flat_plans(problem: Problem, ni: int) -> FlatPlans:
     """Host-side plan construction (one d2h of the index arrays)."""
-    from ..utils import hostcache
     obs = problem.obs
-    pa = hostcache.asnumpy(obs.pose_a)
-    pb = hostcache.asnumpy(obs.pose_b)
-    ii = hostcache.asnumpy(obs.intr_idx)
-    pt = hostcache.asnumpy(obs.point)
+    pa = np.asarray(obs.pose_a)
+    pb = np.asarray(obs.pose_b)
+    ii = np.asarray(obs.intr_idx)
+    pt = np.asarray(obs.point)
     P = int(problem.pose_free.shape[0])
     K = int(problem.intr_free.shape[0])
     M = int(problem.point_free.shape[0])
@@ -238,7 +227,7 @@ def onehot_place(plan: GroupPlan, slot_ids: jax.Array, n_e: int,
     """Σ_slots one_hot(entity) ⊗ block → (n_segments, n_e, ...).
 
     blk: (N, ...) per-observation blocks; returns the per-segment,
-    per-entity sums via an MXU matmul over the slot axis (padded slots
+    per-entity sums via a matmul over the slot axis (padded slots
     contribute zero because the gathered block rows are zero).
     """
     g = plan.gather(blk)                              # (R, L, ...)

@@ -10,7 +10,7 @@ the solve with a gradient-check report.
 
 The check is evaluator-independent (it exercises the flat oracle path);
 the engine equivalence tests in tests/ extend the guarantee to the
-window/Pallas evaluators.
+window evaluator.
 """
 from __future__ import annotations
 

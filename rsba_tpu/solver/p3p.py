@@ -1,4 +1,4 @@
-"""P3P minimal solver (Grunert) — batched, closed form, TPU-friendly.
+"""P3P minimal solver (Grunert) — batched, closed form.
 
 Parity: the reference's minimal-solver path for new-frame registration
 (SURVEY.md §2 C19; VERDICT r3 item 5).  The classical Grunert (1841)
@@ -7,7 +7,7 @@ three unit rays fᵢ and three world points Xᵢ give a quartic in the depth
 ratio; each admissible root yields camera-frame points sᵢfᵢ, and a rigid
 alignment (Kabsch) recovers the pose.
 
-TPU-first shape: everything is batched over the hypothesis axis — the
+Batched shape: everything is batched over the hypothesis axis — the
 quartic is solved in closed form (Ferrari, complex arithmetic; no
 iteration, no data-dependent control flow) and the alignment is a batched
 3×3 SVD, so a RANSAC loop evaluates hundreds of hypotheses as ONE
@@ -92,7 +92,7 @@ def solve_quartic_roots(c4, c3, c2, c1, c0):
 
 
 def _polish_roots(c4, c3, c2, c1, c0, roots, iters: int = 2):
-    """Newton-polish complex roots (cheap insurance for f32 on TPU)."""
+    """Newton-polish complex roots (cheap insurance for f32)."""
     for _ in range(iters):
         cs = [x.astype(roots.dtype)[..., None] for x in (c4, c3, c2, c1, c0)]
         f = (((cs[0] * roots + cs[1]) * roots + cs[2]) * roots

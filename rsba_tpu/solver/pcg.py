@@ -4,7 +4,7 @@ Parity: Ceres ``ITERATIVE_SCHUR`` — ``IterativeSchurComplementSolver`` +
 ``ConjugateGradientsSolver`` + ``SchurJacobiPreconditioner`` (SURVEY.md §2
 C15/C16, §3.4 hot loop #3).
 
-TPU-native formulation: S = B_λ − E C_λ⁻¹ Eᵀ is **never materialized**.
+Matrix-free formulation: S = B_λ − E C_λ⁻¹ Eᵀ is **never materialized**.
 Its matvec is five batched products over the observation axis::
 
     u   = J_cam · p          (N,2)   gather + per-obs small matmul
@@ -13,7 +13,8 @@ Its matvec is five batched products over the observation axis::
     y   = C_λ⁻¹ w            (M,3)   batched 3×3 solves
     ECy = J_camᵀ (J_pt · y)  (Dc,)   gather + scatter-add
 
-All five map onto VPU lanes; no indirection beyond static gathers.  The CG
+All five are batched elementwise/reduction passes; no indirection beyond
+static gathers.  The CG
 loop runs entirely on-device in a ``lax.while_loop`` — zero host round-trips
 per CG iteration (the "speed-of-light per iteration" requirement,
 BASELINE.json north star).
@@ -44,8 +45,8 @@ class SchurFreeOperator(NamedTuple):
     """Matrix-free damped reduced camera system S_λ = B_λ − E C_λ⁻¹ Eᵀ.
 
     ``plans`` (solver/flatplan.py) replaces the duplicate-index
-    scatter/segment_sum reductions with gather + dense slot-sum — the
-    TPU hot path; plans=None keeps the legacy scatter forms (the sharded
+    scatter/segment_sum reductions with gather + dense slot-sum;
+    plans=None keeps the legacy scatter forms (the sharded
     solver's per-shard kernels build their own reductions).
     """
     ev: Evaluation
@@ -378,8 +379,8 @@ def make_iterative_schur_solver(problem: Problem, options: SolverOptions):
         lm_pt, _ = _lm_scaled_damp(c_diag, radius, options)
         lm_pt_b = lm_pt.reshape(M, 3)
         C_l = C + jax.vmap(jnp.diag)(lm_pt_b)
-        # Barrier: keep the closed-form inverse out of downstream MXU
-        # operand fusions (TPU corrupts fused operands — see schur.py).
+        # Barrier: keep the closed-form inverse out of downstream matmul
+        # operand fusions (see schur.py).
         C_inv = jax.lax.optimization_barrier(invert_3x3_psd(C_l))
 
         if cplan is not None:

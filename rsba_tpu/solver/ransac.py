@@ -2,11 +2,11 @@
 
 Parity: the reference's RANSAC-PnP registration of a new frame from raw
 2D-3D matches with outliers and no prior pose (SURVEY.md §2 C19, §3.2;
-VERDICT r3 item 5).  TPU-first shape: instead of the reference's
+VERDICT r3 item 5).  Batched shape: instead of the reference's
 sequential hypothesize-and-verify loop, ALL hypotheses run at once —
 K sampled triples → batched Grunert P3P (solver/p3p.py, ≤4K candidate
 poses) → one batched projection of every candidate against every match
-(an MXU-shaped (4K, M) scoring pass) → argmax inliers — then one robust
+(a matmul-shaped (4K, M) scoring pass) → argmax inliers — then one robust
 pose-only LM polish on the winner's inliers (solver/pnp.py).
 
 Rolling shutter: hypotheses are scored under the global-shutter model

@@ -5,7 +5,7 @@ C7/C8/C11, §3.3).  Where Ceres fans threads out over residual blocks and
 propagates ``Jet`` duals through a templated functor, we evaluate **all
 observations as one batched jax computation**: `jax.jacfwd` over the 18+ni
 tangent coordinates of a single observation, `vmap`'d over the observation
-axis — VPU lanes replace threads (SURVEY.md §2.9 P1).
+axis — vector lanes replace threads (SURVEY.md §2.9 P1).
 
 Jacobians are taken in **tangent space** directly (pose ⊞ δ with the
 quaternion manifold, intrinsics through the static basis), so downstream
@@ -16,15 +16,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ..geometry import camera, quaternion as quat
 from ..problem.types import POSE_DOF, Observations, Params, Problem
+from ..pytree import pytree_dataclass
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Evaluation:
     """Robust-corrected, masked residuals and block Jacobians."""
     r: jax.Array                    # (N, 2) corrected residuals
@@ -95,7 +95,7 @@ def cost_decrease(params_old: Params, params_new: Params,
                   problem: Problem) -> jax.Array:
     """½ Σ mask·(ρ_old − ρ_new), summed PAIRWISE per observation.
 
-    In f32 on TPU the total cost's ulp can exceed a near-convergence
+    In f32 the total cost's ulp can exceed a near-convergence
     step's true decrease (robust problems sit on a large outlier-cost
     plateau); differencing per-observation before reducing keeps the
     error at ~√N·ulp(ρ_i) instead of ulp(Σρ) — the compensated-reduction

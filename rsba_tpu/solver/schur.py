@@ -3,14 +3,13 @@
 Parity: Ceres ``DENSE_SCHUR`` — ``SchurEliminator`` + dense Cholesky of the
 reduced camera system (SURVEY.md §2 C12-C14, §3.1 hot loops #1-2).
 
-TPU-native formulation: instead of Ceres's per-point outer-product scatter
+Batched formulation: instead of Ceres's per-point outer-product scatter
 into a block-sparse S, we materialize the **camera-point matrix Eᵀ densely
 per point** — shape (M, 3, Dc) — and form
 
     E C_λ⁻¹ Eᵀ = Σ_j A_jᵀ (C_λ⁻¹)_j A_j = einsum('mjd,mje->de', A, C_λ⁻¹A)
 
-one big (3M × Dc)ᵀ(3M × Dc) matmul that maps straight onto the MXU,
-chunked over points when A would not fit memory.  The per-point 3×3
+one big (3M × Dc)ᵀ(3M × Dc) matmul, chunked over points when A would not fit memory.  The per-point 3×3
 inverses are a batched closed-form solve (hot loop #2's 3×3 inverts,
 vectorized).  Landmarks never enter the factored system (SURVEY.md §5.7).
 
@@ -113,13 +112,13 @@ def assemble_E_dense(ev: Evaluation, problem: Problem,
     return A
 
 
-# --- plan-based assembly (the TPU hot path) ---------------------------------
+# --- plan-based assembly ----------------------------------------------------
 #
 # The legacy assemblers above scatter per-observation blocks with
-# duplicate indices — serialized on TPU (338 ms for B, 157 ms for E at
-# config-2 scale).  These variants reduce via host-built groupings
-# (solver/flatplan.py): gather → dense slot-sum → near-unique row fold,
-# plus a one-hot MXU matmul for E's per-camera column placement.  Same
+# duplicate indices, which serialize on collisions.  These variants reduce
+# via host-built groupings (solver/flatplan.py): gather → dense slot-sum →
+# near-unique row fold, plus a one-hot matmul for E's per-camera column
+# placement.  Same
 # math, different summation order (f32-rounding-level differences only);
 # the legacy forms remain the cross-check oracles and the sharded
 # solver's per-shard kernels.
@@ -127,11 +126,9 @@ def assemble_E_dense(ev: Evaluation, problem: Problem,
 def _col_products(Ji: jax.Array, Jk: jax.Array) -> jax.Array:
     """All (i, k) column products Σ_r Ji[:, r, i]·Jk[:, r, k] → (wi·wk, N).
 
-    TPU layout rule (same as kernels/fused.py's planes layout): keep the
-    observation axis N on the minor/lane dimension and unroll the tiny
-    block dims in Python — (N, w, w) block tensors put two tiny dims
-    minor, which XLA pads to (8, 128) tiles (measured 13 GB of temp for
-    one einsum→gather chain at config-2 scale).
+    Layout rule: keep the observation axis N on the minor dimension and
+    unroll the tiny block dims in Python — (N, w, w) block tensors put
+    two tiny dims minor.
     """
     wi, wk = Ji.shape[2], Jk.shape[2]
     return jnp.stack(
@@ -245,7 +242,7 @@ def assemble_B_planned(ev: Evaluation, problem: Problem,
 def assemble_E_planned(ev: Evaluation, problem: Problem,
                        shapes: assembly.TangentShapes,
                        plans: flatplan.FlatPlans) -> jax.Array:
-    """Eᵀ per point, A (M, 3, Dc) — one-hot MXU placement, no scatter.
+    """Eᵀ per point, A (M, 3, Dc) — one-hot matmul placement, no scatter.
 
     Column components (x·w, N) → point-slot layout (C, L, R) → one
     batched contraction against the per-slot camera one-hot → fold.
@@ -303,10 +300,8 @@ def invert_6x6_psd(M: jax.Array) -> jax.Array:
     """Batched closed-form inverse of symmetric PD 6×6 blocks (…,6,6).
 
     Blocked 2×2-of-3×3 Schur form on top of invert_3x3_psd — pure
-    elementwise VPU math.  XLA's batched ``cholesky``/``cho_solve`` on
-    tiny blocks lowers to a serialized loop on TPU (measured: seconds
-    for a (10k,6,6) batch at config-5 scale); this is microseconds.
-    Used for preconditioner factors, where closed-form round-off is
+    elementwise math, one fused pass instead of a batched
+    ``cholesky``/``cho_solve`` over tiny blocks.  Used for preconditioner factors, where closed-form round-off is
     harmless (it only perturbs the CG convergence rate, not the fixed
     point).
     """
@@ -494,11 +489,11 @@ def make_dense_schur_solver(problem: Problem, options: SolverOptions):
         c_diag = jnp.diagonal(C, axis1=-2, axis2=-1)           # (M,3)
         lm_pt, dead_pt = _lm_scaled_damp(c_diag.reshape(-1), radius, options)
         C_l = C + jax.vmap(jnp.diag)(lm_pt.reshape(M, 3))
-        # Barriers are LOAD-BEARING on TPU: XLA fuses the closed-form
-        # inverse / the Y product into the MXU contraction operands and
-        # the fused form corrupts the result (measured: S gained
-        # negative diagonal entries, Cholesky → NaN, solver FAILURE; see
-        # flatcols.ColsPlan.cam_reduce for the same bug class).
+        # Barriers keep the closed-form inverse / the Y product out of
+        # the contraction operands: the fused form was observed to
+        # corrupt S on the accelerator this path was first built for
+        # (negative diagonal entries, Cholesky → NaN; see
+        # flatcols.ColsPlan.cam_reduce).  Kept until measured on the GPU.
         C_inv = jax.lax.optimization_barrier(invert_3x3_psd(C_l))
 
         # Reduced system: S = B_λ − Σ_j A_jᵀ C_j⁻¹ A_j.

@@ -59,7 +59,7 @@ class Summary:
     linear_solver_time: float = 0.0
     total_time: float = 0.0
     # Resolved engine pair (what actually ran, not the requested string):
-    # e.g. ("banded_schur", "pallas") or ("iterative_schur", "xla-flat").
+    # e.g. ("banded_schur", "xla") or ("iterative_schur", "xla-flat").
     linear_solver: str = ""
     evaluator: str = ""
 

@@ -1,4 +1,4 @@
-"""Window (track-major) observation layout — the TPU-native hot layout.
+"""Window (track-major) observation layout — the banded engine's layout.
 
 Parity: this replaces the *storage layout* of Ceres's residual-block program
 (SURVEY.md §2 C10/C11) for video-style problems.  The flat structure-of-arrays
@@ -18,13 +18,9 @@ per-observation gathers**:
   (NR·W)-row gather (thousands of indices, not millions) and **broadcast**
   over (G, L); per-slot pose selection is a compare-select over W.
 * Point-side reductions (g_pt, C blocks, Eᵀu) are sums over the L axis.
-* Camera-side reductions contract (G, L) against a one-hot over W (an MXU
+* Camera-side reductions contract (G, L) against a one-hot over W (a
   matmul), then fold per-row windows into per-pose rows with an
   (NR·W)-index scatter-add — thousands of rows, negligible.
-
-Measured on TPU v5e at config-4 scale (910k obs): the flat layout's
-observation-sized scatter-adds cost 15-50 ms *per reduction*; every
-primitive above is ≤2 ms (benchmarks/profiling/microbench_window.py).
 
 Applicability: any problem where every point's observations touch a pose
 window of bounded span (video sequences — configs 3/4/5) and pose_b ∈
@@ -39,15 +35,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..problem.types import Problem
+from ..pytree import pytree_dataclass
 
 
-@flax.struct.dataclass
+@pytree_dataclass(static=("NR", "G", "L", "W", "n_poses", "n_points"))
 class WindowPlan:
     """Static re-packing of a Problem into the (NR, G, L) window grid.
 
@@ -55,12 +51,12 @@ class WindowPlan:
     (the sentinel row appended to gathered point arrays).
     """
     # --- static geometry (hashable → jit-stable) -------------------------
-    NR: int = flax.struct.field(pytree_node=False)
-    G: int = flax.struct.field(pytree_node=False)
-    L: int = flax.struct.field(pytree_node=False)
-    W: int = flax.struct.field(pytree_node=False)
-    n_poses: int = flax.struct.field(pytree_node=False)
-    n_points: int = flax.struct.field(pytree_node=False)
+    NR: int
+    G: int
+    L: int
+    W: int
+    n_poses: int
+    n_points: int
     # --- per-row window base ----------------------------------------------
     row_base: jax.Array  # (NR,) int32 first pose of the row's window
     # --- observation data in window layout --------------------------------
@@ -99,7 +95,7 @@ class WindowPlan:
     def select_a(self, win: jax.Array) -> jax.Array:
         """Per-slot pose_a values: (NR, W, ...) windows → (NR, G, L, ...).
 
-        Compare-select over the W axis (elementwise; avoids TPU gathers).
+        One-hot contraction over the W axis (no per-slot gather).
         """
         return self._select(win, self.offs_a)
 
@@ -176,11 +172,10 @@ def build_window_plan(problem: Problem, max_window: int = 24,
     if problem.intr_tangent_dim != 0:
         return None
     obs = problem.obs
-    from ..utils import hostcache
-    pose_a = hostcache.asnumpy(obs.pose_a)
-    pose_b = hostcache.asnumpy(obs.pose_b)
-    point = hostcache.asnumpy(obs.point)
-    mask = hostcache.asnumpy(obs.mask) > 0
+    pose_a = np.asarray(obs.pose_a)
+    pose_b = np.asarray(obs.pose_b)
+    point = np.asarray(obs.point)
+    mask = np.asarray(obs.mask) > 0
     d_ab = pose_b - pose_a
     if not np.all(np.isin(d_ab[mask], (0, 1))):
         return None
@@ -268,9 +263,9 @@ def build_window_plan(problem: Problem, max_window: int = 24,
             [a, np.full((1,) + a.shape[1:], fill, dtype=a.dtype)])
         return ext[obs_sel]
 
-    uv_h = hostcache.asnumpy(obs.uv)
+    uv_h = np.asarray(obs.uv)
     uv = pack(uv_h)
-    t = pack(hostcache.asnumpy(obs.t))
+    t = pack(np.asarray(obs.t))
     m = pack(mask.astype(uv_h.dtype))
     pa = pack(pose_a, fill=0)
     dab = pack(d_ab, fill=0)

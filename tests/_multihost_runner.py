@@ -49,7 +49,7 @@ def main() -> int:
         loss=Loss("huber", 4.0), pixel_noise=0.3, seed=7,
         dtype=jnp.float32, pad_to=64)
 
-    opts = SolverOptions(linear_solver="banded_schur", evaluator="xla",
+    opts = SolverOptions(linear_solver="banded_schur",
                          max_cg_iterations=50, cg_eta=1e-6)
     fns_s = dist.make_sharded_window_solver_fns(ba.problem, opts, mesh)
     fns_1 = lm.make_solver_fns(ba.problem, opts)

@@ -292,11 +292,3 @@ def test_auto_falls_back_to_flat_without_window_structure():
     assert s.termination == "CONVERGENCE", s.message
     assert s.linear_solver == "iterative_schur"
 
-
-def test_options_reject_bad_row_tile():
-    import pytest
-    with pytest.raises(ValueError, match="row_tile"):
-        SolverOptions(row_tile=3)
-    with pytest.raises(ValueError, match="row_tile"):
-        SolverOptions(row_tile=-1)
-    SolverOptions(row_tile=4)   # valid

@@ -56,6 +56,36 @@ def test_cli_sharded_rs(capsys):
     assert "[sharded]" in out
 
 
+def test_cli_f64_enables_x64_on_accelerator(capsys, monkeypatch):
+    """--dtype f64 turns on x64 whatever the backend (not only on CPU)."""
+    import jax
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    jax.config.update("jax_enable_x64", False)
+    try:
+        rc, out = run_main(capsys, "--config=gs_small", "--scale=0.05",
+                           "--max-iterations=15", "--dtype=f64")
+        assert jax.config.jax_enable_x64
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    assert rc == 0, out[-2000:]
+    rec = last_json(out)
+    assert rec["dtype"] == "f64"
+    assert "backend=gpu" in out
+
+
+def test_chip_smoke_refuses_cpu():
+    """chip_smoke.py exits non-zero and prints no result line without a
+    GPU."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "chip_smoke.py"],
+                       capture_output=True, text=True, timeout=120, env=env,
+                       cwd=REPO)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    assert "no GPU" in r.stderr
+
+
 def test_cli_rejects_unknown_config():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")

@@ -1,7 +1,7 @@
 """Distributed-solver tests on the 8-virtual-device CPU mesh.
 
 SURVEY.md §4.2 item 5: `shard_map` code paths are identical on CPU and
-TPU; assert sharded solve == single-device solve within reduction-order
+GPU; assert sharded solve == single-device solve within reduction-order
 tolerance.  The repartitioned problem keeps global indices, so the exact
 same padded problem is solvable both ways — a tight oracle.
 """

@@ -1,7 +1,8 @@
 """f32-vs-f64 numerics (SURVEY.md §4.2 item 6, §7.2 hard part #1).
 
-TPU has no f64; the solver must reach the f64 optimum in f32 via problem
-normalization + Jacobi scaling + matmul_precision="highest".  These run
+The accelerator runs f32 by default (f64 costs twice the bytes); the
+solver must reach the f64 optimum in f32 via problem normalization +
+Jacobi scaling + matmul_precision="highest".  These run
 on CPU where both dtypes exist, solving the same scene in both.
 """
 import jax.numpy as jnp

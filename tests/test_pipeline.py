@@ -104,9 +104,9 @@ def test_session_defers_bootstrap_without_parallax():
 
 
 def test_session_f32_mode():
-    """f32 session — the TPU dtype: bootstrap, registration,
-    triangulation and BA must all be f32-safe (VERDICT r4 missing #4).
-    The chip-side run of this mode is benchmarks/pipeline_tpu.py."""
+    """f32 session — the accelerator dtype: bootstrap, registration,
+    triangulation and BA must all be f32-safe.  The GPU run of this mode
+    is chip_smoke.py's session phase."""
     ba = synthetic.make_ba_problem(
         n_poses=14, n_points=300, track_len=6, rolling_shutter=False,
         use_distortion=False, pixel_noise=0.5, seed=6, name="session_f32")
